@@ -107,7 +107,7 @@ class Tiling:
     """Decomposition of the global cell grid into equal tiles.
 
     A *tile* is the unit of particle binning, of the batched deposition /
-    gather kernels, and of load balancing — the TPU-native descendant of the
+    gather kernels, and of load balancing — the on-device descendant of the
     reference's ``Tile`` struct (``Auxiliar_functions.h:37-42``). Tile
     identity is its (row, col) / global ID, never its storage slot
     (the reference's migration invariant).

@@ -2,8 +2,15 @@
 
 ``reference_pulse`` reproduces the reference's shipped configuration
 (PIC_2D.cpp:57-74 + the active Test-3 init) — fields-only, HDF5 output
-compatible with its File_reader.  The other five are the BASELINE.json
-benchmark configs the reference never reached.
+compatible with its File_reader.  ``headline`` is the throughput deck
+(1e8 particles on 512^2).  The others are the BASELINE.json benchmark
+configs the reference never reached, plus load-balance and moving-window
+variants.
+
+Particle decks use 8x8 tiles with guard 4: the guard funds the
+drift-triggered re-bin budget (Deck.drift_threshold), so a thermal
+plasma re-bins every few tens of steps.  ``KCHUNK`` is the XLA advance's
+scan chunk measured fastest on the H100 at the headline deck.
 
 Each case bundles a Deck with optional initial fields and a state "seeder"
 (perturbations applied after loading, e.g. the two-stream velocity seed).
@@ -27,6 +34,11 @@ class Case:
     init_fields: Optional[Callable] = None  # (deck) -> FieldState
     seed_state: Optional[Callable] = None  # (state, deck) -> state
     notes: str = ""
+
+
+# XLA advance scan chunk (Deck.kchunk), measured on the H100 at the
+# headline deck: see PERF.md.
+KCHUNK = 1024
 
 
 def _fit_tile(n: int, target: int = 25) -> int:
@@ -53,18 +65,12 @@ def reference_pulse(nx: int = 450, ny: int = 450) -> Case:
 
 
 def two_stream(nx: int = 64, ny: int = 64, ppc: int = 16, u0: float = 0.2) -> Case:
-    """BASELINE config 1: two-stream instability, TSC shapes.
-
-    Ships the measured-fast engine config (round-5: the tuned path is
-    the product default, not a bench flag): 8x8 tiles + guard 4 (the
-    only fused-single-dot-gather-eligible window, docs/ROADMAP.md),
-    whole-bucket chunks, int8 matched-quantization deposit (uniform
-    weights; TSC order 2 — the on-chip 10k-step energy-acceptance
-    config, docs/energy_tpu_10k_int8q.json)."""
+    """BASELINE config 1: two-stream instability, TSC shapes (the
+    10k-step energy-acceptance config, scripts/energy_probe.py)."""
     lx = 2 * math.pi * u0 / 0.45  # mode 1 near peak growth
     deck = Deck(
         box_x=lx, box_y=lx * ny / nx, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
-        guard=4, kchunk=0, deposit="int8",
+        guard=4, kchunk=KCHUNK,
         species=(
             SpeciesSpec("right", charge=-1.0, mass=1.0, ppc=ppc, ux=u0,
                         shape_order=2),
@@ -92,10 +98,8 @@ def weibel(nx: int = 128, ny: int = 128, ppc: int = 16, uz: float = 0.6) -> Case
     """BASELINE config 2: Weibel instability — counter-streaming along z,
     anisotropy drives in-plane magnetic filaments; check B-energy growth."""
     deck = Deck(
-        # 8x8 tiles + guard 4 + whole-bucket + int8: the measured-fast
-        # engine config (fused single-dot gather; see two_stream).
         box_x=12.8, box_y=12.8, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
-        guard=4, kchunk=0, deposit="int8",
+        guard=4, kchunk=KCHUNK,
         species=(
             SpeciesSpec("up", charge=-1.0, mass=1.0, ppc=ppc, uz=uz,
                         uth=0.01, shape_order=2),
@@ -126,10 +130,8 @@ def landau(nx: int = 256, ny: int = 256, ppc: int = 16) -> Case:
     k = klam / uth  # k lambda_D = k uth / wp
     lx = 2 * math.pi / k
     deck = Deck(
-        # 8x8 tiles + guard 4 + whole-bucket + int8: the measured-fast
-        # engine config (fused single-dot gather; see two_stream).
         box_x=lx, box_y=lx, nx=nx, ny=ny, tile_nx=8, tile_ny=8, guard=4,
-        kchunk=0, deposit="int8",
+        kchunk=KCHUNK,
         species=(
             SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=uth, shape_order=2),
             SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc, uth=0.0, shape_order=2),
@@ -158,14 +160,8 @@ def laser_plasma(nx: int = 512, ny: int = 512, ppc: int = 4) -> Case:
         return 0.05 * 0.5 * (1.0 + jnp.tanh((x - 15.0) / 2.0))
 
     deck = Deck(
-        # Stays on the f32-exact deposit — the slab is WEIGHT-loaded
-        # (graded particle weights along the ramp), so q*w does not
-        # factor out of the contraction and int8 is ineligible by
-        # design (the runtime weight guard would reject it).  Keeps the
-        # round-4 16x16/kchunk-256 geometry: the 8x8+guard-4
-        # fused-gather config only pays for the int8 path, and this
-        # deck measured SLOWER there (18.8 vs 15.2 ms/step,
-        # docs/R5_BATCH.log batch C vs the round-4 table).
+        # 16x16 tiles at the default guard 2: CIC shapes leave no drift
+        # budget there, so this deck re-bins on the interval schedule.
         box_x=box, box_y=box, nx=nx, ny=ny, tile_nx=16, tile_ny=16,
         species=(
             SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.01, density=slab),
@@ -183,9 +179,26 @@ def laser_plasma(nx: int = 512, ny: int = 512, ppc: int = 4) -> Case:
     )
 
 
+def headline(nx: int = 512, ny: int = 512, ppc: int = 381) -> Case:
+    """The throughput deck: 1e8 thermal electrons (381 ppc, uth = 0.05,
+    TSC) on a 512^2 periodic grid with an implied immobile neutralizing
+    background, 8x8 tiles at guard 4 and the drift-triggered re-bin.
+    1.1x bucket headroom: 4,096 tiles of ~27k slots, ~2.7 GB of particle
+    state."""
+    deck = Deck(
+        box_x=nx / 10.0, box_y=ny / 10.0, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
+        guard=4, kchunk=KCHUNK, capacity_headroom=1.1,
+        species=(SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.05,
+                             shape_order=2),),
+    )
+    return Case("headline", deck,
+                notes="1e8 particles, 512^2, TSC: the pushes/s deck")
+
+
 def load_balance_stress(nx: int = 1024, ny: int = 1024, n_particles: float = None) -> Case:
     """BASELINE config 5: nonuniform density blob on a 1024^2 grid,
-    1e8 particles, grid sharded over 8 chips.  The blob concentrates
+    ~2e8 particles (95 ppc x 2 species), sharded over the available
+    cards.  The blob concentrates
     *weight* in the center while particle COUNTS stay uniform per tile
     (weighted loading) — so per-chip work (~ live particles, the
     occupancy-bounded kernels skip dead slots) starts balanced.  This deck
@@ -200,23 +213,18 @@ def load_balance_stress(nx: int = 1024, ny: int = 1024, n_particles: float = Non
         return 0.1 + 4.0 * jnp.exp(-r2)
 
     deck = Deck(
-        # 8x8 tiles + guard 4: nyg=16 keeps the fused single-issue gather
-        # on the 128-wide MXU tile (ppd_kernel), and the guard funds the
-        # drift-triggered re-bin budget.  Whole-bucket chunks; f32-exact
-        # deposit ON PURPOSE: weighted loading (graded per-particle w)
-        # is this deck's stress axis, and non-uniform weights make the
-        # int8 factored-q*w deposit ineligible — the count-mode variants
-        # below are the int8-eligible stress decks.
+        # Weighted loading (graded per-particle w) is this deck's stress
+        # axis; the count-mode variant below stresses work skew.
         box_x=102.4, box_y=102.4, nx=nx, ny=ny, tile_nx=8, tile_ny=8, guard=4,
-        kchunk=0,
+        kchunk=KCHUNK,
         species=(
             SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.05, density=blob),
             SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc, density=blob),
         ),
-        sim_time=10.0, mesh_shape=(2, 4),
+        sim_time=10.0,
     )
     return Case("load_balance_stress", deck,
-                notes="sharded 2x4; uniform slot load under nonuniform density")
+                notes="sharded; uniform slot load under nonuniform density")
 
 
 def load_balance_stress_counts(nx: int = 1024, ny: int = 1024, ppc: int = 95) -> Case:
@@ -224,7 +232,7 @@ def load_balance_stress_counts(nx: int = 1024, ny: int = 1024, ppc: int = 95) ->
     with load_mode='count' — constant-weight particles, per-cell LIVE
     COUNTS following the 0.1..4.1 profile (a ~41x count contrast between
     blob center and edge).  Per-chip work (~ live particles under the
-    occupancy-bounded kernels) now genuinely contrasts: on the (2, 4) mesh
+    occupancy-bounded kernels) now genuinely contrasts: on a block mesh
     the blob-center shards are the stragglers.  StepDiag.shard_live /
     RunHistory.live_skew is the observable; balanced (striped) placement
     is the fix (parallel/balanced.py)."""
@@ -235,23 +243,20 @@ def load_balance_stress_counts(nx: int = 1024, ny: int = 1024, ppc: int = 95) ->
 
     deck = Deck(
         # Count-mode loading keeps every survivor at the same weight
-        # (n_max*dxdy/ppc), so the int8 matched-quantization deposit is
-        # eligible — n_max is DECLARED (blob peak 0.1 + 4.0) so the
-        # uniform value is global, not shard-local (SpeciesSpec.
-        # uniform_weights).  Whole-bucket chunks + int8: the
-        # measured-fast engine config.
+        # (n_max*dxdy/ppc); n_max is declared (blob peak 0.1 + 4.0) so
+        # the weight is global, not shard-local.
         box_x=102.4, box_y=102.4, nx=nx, ny=ny, tile_nx=8, tile_ny=8, guard=4,
-        kchunk=0, deposit="int8",
+        kchunk=KCHUNK,
         species=(
             SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.05,
                         density=blob, load_mode="count", n_max=4.1),
             SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc,
                         density=blob, load_mode="count", n_max=4.1),
         ),
-        sim_time=10.0, mesh_shape=(2, 4),
+        sim_time=10.0,
     )
     return Case("load_balance_stress_counts", deck,
-                notes="sharded 2x4; REAL count contrast -> work skew")
+                notes="sharded; REAL count contrast -> work skew")
 
 
 def load_balance_bunching(nx: int = 512, ny: int = 512, ppc: int = 64) -> Case:
@@ -269,10 +274,9 @@ def load_balance_bunching(nx: int = 512, ny: int = 512, ppc: int = 64) -> Case:
 
     deck = Deck(
         # Count-mode (uniform weights, declared n_max = blob peak
-        # 0.05 + 4.0) -> int8-eligible; whole-bucket chunks.  See
-        # load_balance_stress_counts.
+        # 0.05 + 4.0).  See load_balance_stress_counts.
         box_x=51.2, box_y=51.2, nx=nx, ny=ny, tile_nx=8, tile_ny=8, guard=4,
-        kchunk=0, deposit="int8",
+        kchunk=KCHUNK,
         species=(
             SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, ux=0.5,
                         uth=0.02, density=blob, load_mode="count",
@@ -281,10 +285,10 @@ def load_balance_bunching(nx: int = 512, ny: int = 512, ppc: int = 64) -> Case:
                         uth=0.02, density=blob, load_mode="count",
                         n_max=4.05),
         ),
-        sim_time=120.0, mesh_shape=(2, 4),
+        sim_time=120.0,
     )
     return Case("load_balance_bunching", deck,
-                notes="sharded 2x4; drifting bunch crosses every shard")
+                notes="sharded; drifting bunch crosses every shard")
 
 
 def laser_wakefield_window(nx: int = 512, ny: int = 256, ppc: int = 4) -> Case:
@@ -301,14 +305,12 @@ def laser_wakefield_window(nx: int = 512, ny: int = 256, ppc: int = 4) -> Case:
         # upramp between x = 30 and 50 (absolute/lab coords), then a flat
         # n = 0.3 plateau: lambda_p = 2 pi/sqrt(0.3) ~ 11.5 c/wp, so the
         # length-4 pulse sits near half-plasma-wavelength resonance and
-        # drives a visible wake (docs/figs/wakefield_window.png).
+        # drives a visible wake (scripts/wakefield_artifact.py --fig).
         return 0.3 * 0.5 * (1.0 + jnp.tanh((x - 40.0) / 4.0))
 
     deck = Deck(
-        # Whole-bucket chunks; f32-exact deposit (weight-loaded upramp ->
-        # non-uniform w -> int8 ineligible, same as laser_plasma).
         box_x=box_x, box_y=box_y, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
-        guard=4, kchunk=0,
+        guard=4, kchunk=KCHUNK,
         species=(
             SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.01,
                         density=profile, shape_order=2),
@@ -335,6 +337,7 @@ def laser_wakefield_window(nx: int = 512, ny: int = 256, ppc: int = 4) -> Case:
 
 CASES: Dict[str, Callable[..., Case]] = {
     "reference_pulse": reference_pulse,
+    "headline": headline,
     "two_stream": two_stream,
     "weibel": weibel,
     "landau": landau,

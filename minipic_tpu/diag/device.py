@@ -117,3 +117,38 @@ def current_moments(p: ParticleState, q: float) -> jax.Array:
     return jnp.stack(
         [jnp.sum(w * p.px * gi), jnp.sum(w * p.py * gi), jnp.sum(w * p.pz * gi)]
     )
+
+
+def shape_charge_density(state, deck) -> jax.Array:
+    """Charge density on the Ez (integer) points with the deposit's own
+    shapes, all species, folded onto the periodic grid — the ρ that
+    Esirkepov deposition keeps consistent with div E."""
+    from ..fields.halo import fold_block_periodic
+    from ..fields.tiles import fold_tiles
+    from ..particles.deposit import deposit_rho_chunk
+    from ..simulation import _tile_origins, tile_local_coords
+
+    tiling, g = deck.tiling, deck.guard
+    origins = _tile_origins(tiling, deck.dtype)
+    rho = jnp.zeros((deck.ny, deck.nx), deck.dtype)
+    for spec, p in zip(deck.species, state.species):
+        xi, eta = tile_local_coords(p.x, p.y, origins, tiling.tile_nx,
+                                    tiling.tile_ny, (deck.nx, deck.ny))
+        tiles = deposit_rho_chunk(xi, eta, spec.charge * p.w, tiling.tile_ny,
+                                  tiling.tile_nx, g, spec.shape_order,
+                                  deck.dx, deck.dy)
+        t4 = tiles.reshape(tiling.tile_rows, tiling.tile_cols,
+                           tiling.tile_ny + 2 * g, tiling.tile_nx + 2 * g)
+        rho = rho + fold_block_periodic(
+            fold_tiles(t4, tiling.tile_ny, tiling.tile_nx, g), g)
+    return rho
+
+
+def gauss_residual(state, deck) -> Tuple[jax.Array, jax.Array]:
+    """(div E - ρ, ρ) on a periodic grid.  Charge-conserving deposition
+    and the Yee update keep the residual a constant of motion."""
+    f = state.fields
+    div_e = ((f.ex - jnp.roll(f.ex, 1, 1)) / deck.dx
+             + (f.ey - jnp.roll(f.ey, 1, 0)) / deck.dy)
+    rho = shape_charge_density(state, deck)
+    return div_e - rho, rho

@@ -23,23 +23,16 @@ class RunHistory:
         # (1.0 = perfectly balanced; occupancy-bounded kernels make the
         # slowest chip ~ the max entry).
         self.live_skew: List[float] = []
+        self.rebinned: List[int] = []  # 1 where the step re-binned
         self._t0 = time.perf_counter()
 
     def record(self, step: int, dt: float, diag) -> None:
-        bad = getattr(diag, "weight_nonuniform", None)
-        if bad is not None and int(bad) > 0:
-            raise RuntimeError(
-                f"step {step}: int8 deposit engaged with NON-UNIFORM live "
-                f"particle weights in {int(bad)} species — the integer-ring "
-                "deposit scales currents by the uniform q*max(w), so this "
-                "run is depositing wrong currents. Use deposit='highest' "
-                "for per-particle weights (simulation.int8_weight_violations)."
-            )
         self.steps.append(int(step))
         self.time.append(float(step * dt))
         self.field_energy.append(float(diag.field_energy))
         self.kinetic_energy.append([float(k) for k in diag.kinetic_energy])
         self.overflow.append(int(diag.overflow))
+        self.rebinned.append(int(getattr(diag, "rebinned", 0)))
         live = getattr(diag, "shard_live", None)
         if live is not None and len(live) > 0:
             import numpy as _np
@@ -73,6 +66,7 @@ class RunHistory:
                 "overflow": self.overflow,
                 "wall": self.wall,
                 "live_skew": self.live_skew,
+                "rebinned": self.rebinned,
             }
         )
 

@@ -4,7 +4,7 @@ reference's halo machinery, done with reshapes and rolls only.
 The reference packs per-tile guard strips into MPI messages
 (``packSendBuffer``/``updateGuardRegion``, Auxiliar_functions.cpp:73-239 —
 8 directions x 2 sides x 3 exchanges/step x 36 tiles ≈ 1,728 messages per
-rank per step).  On TPU, tiles that live on the same chip share an address
+rank per step).  Here tiles that live on the same device share an address
 space, so "halo exchange" between them is pure data layout:
 
 * ``extract_tiles``: padded local block (ny+2g, nx+2g) -> overlapping tile

@@ -44,17 +44,9 @@ def load_checkpoint(path: str, deck: "Deck" = None) -> SimState:
     )
     if "drift" in z:
         drift = jnp.asarray(z["drift"])
-    elif deck is not None and deck.species and deck.uses_drift_trigger():
-        # Pre-drift checkpoints: restore between the drift and force
-        # thresholds so the first step triggers a *non-forced* re-bin —
-        # deferral-capable if a tile's movers overflow, instead of
-        # drop-and-count on the very first step after restart.
-        drift = jnp.float32(deck.drift_threshold() + 1e-3)
     else:
-        # No deck to derive thresholds from: force a re-bin on the first
-        # drift-triggered step (safe for freshly-sorted buckets; a stale
-        # bucket with an overfull mover buffer would drop-and-count —
-        # pass the deck to get the deferral-capable restore).
+        # Pre-drift checkpoints: re-bin on the first drift-triggered step
+        # (harmless for freshly sorted buckets).
         drift = jnp.float32(1e9)
     w0 = jnp.asarray(z["window_x0"]) if "window_x0" in z else None
     if w0 is None and deck is not None and getattr(deck, "moving_window", False):
@@ -85,8 +77,7 @@ def particles_from_snapshot(step: int, folder: str, deck: Deck) -> Tuple[Particl
         row = np.floor(d["y"] / tiling.tile_ny).astype(np.int64)
         tid = row * tiling.tile_cols + col
         dens = int(np.bincount(tid, minlength=tiling.num_tiles).max()) if n else 0
-        q = deck.kchunk if deck.kchunk > 0 else 128
-        cap = max(deck.capacity(), -(-dens // q) * q)
+        cap = max(deck.capacity(), deck.round_capacity(dens))
         pool = tiling.num_tiles * cap
         flat = ParticleState(
             *(

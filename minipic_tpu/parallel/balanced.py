@@ -6,16 +6,15 @@ overloaded ranks through blocking MPI sends and a replicated owner table
 "tiling load balance" in its name.  The block-sharded step
 (parallel/step.py) has no such mechanism: tile->chip placement is static
 and spatially contiguous, so a localized particle concentration (a blob,
-a wakefield snowplow, two-stream bunching) makes one chip the straggler
-— per-chip work is ~ live particles under the occupancy-bounded kernels
+a wakefield snowplow, two-stream bunching) makes one device the straggler
 (StepDiag.shard_live measures the skew).
 
-This module is the TPU-native answer, and it is STRONGER than reactive
-migration: stripe the tiles round-robin over the chips (shard s owns
-gids {j*S + s}), so any spatial concentration — static or moving — is
-spread over all S chips to per-tile granularity, every step, with no
-migration machinery, no owner table, and no trigger policy at all.  The
-enabling observation is PIC's scale split on TPU:
+This module's answer is STRONGER than reactive migration: stripe the
+tiles round-robin over the devices (shard s owns gids {j*S + s}), so any
+spatial concentration — static or moving — is spread over all S devices
+to per-tile granularity, every step, with no migration machinery, no
+owner table, and no trigger policy at all.  The enabling observation is
+PIC's scale split:
 
 * the GRID is small (a 1024^2 x 6-component field block is ~25 MB) —
   cheap to hold and update REPLICATED on every chip;
@@ -26,26 +25,24 @@ Per-step program (shard_map over the 1-D mesh axis 'd'):
 
   1. fields replicated -> halo-pad locally (identical everywhere)
   2. slice THIS shard's striped tile windows; fused gather/push/deposit
-     on the local buckets (same kernels as block mode)
+     on the local buckets (same advance as block mode)
   3. scatter local J windows into a full-grid canvas -> psum over 'd'
      -> guard fold: J replicated
-  4. Yee update computed redundantly on every chip (microseconds of VPU
-     for megabytes saved in halo choreography — the classic
-     replicate-the-cheap-thing trade)
-  5. re-bin: split out movers per bucket (ops/pallas split kernel with
-     per-tile gid coordinates), all_gather the mover buffers — with a
-     striped layout a mover's destination is ANY shard, so the exchange
-     is a collective, not a neighbor ppermute — then filler-key-sort the
-     arrivals addressed to this shard (rebin_by_tid) and append at the
-     watermarks.
+  4. Yee update computed redundantly on every device (microseconds of
+     elementwise work for megabytes saved in halo choreography — the
+     classic replicate-the-cheap-thing trade)
+  5. re-bin: pack the slots that left this shard's stripe into a buffer,
+     all_gather the buffers — with a striped layout a mover's destination
+     is ANY shard, so the exchange is a collective, not a neighbor
+     ppermute — then one filler-key sort of (stayers + arrivals
+     addressed to this shard) into the local buckets (rebin_by_tid).
 
 Trade-offs vs block placement (parallel/step.py): J reduction costs a
 full-grid psum instead of a guard-ring exchange, and mover routing costs
 an all_gather instead of four ppermutes — both scale with the GRID and
 the MOVER COUNT respectively, not with total particles.  Block mode wins
 for grid-dominated or quiet uniform runs; striped mode wins whenever
-live-count skew would exceed ~1/S of a step (measured skews:
-docs/ROADMAP.md load-balance section).
+live-count skew would exceed ~1/S of a step.
 """
 from __future__ import annotations
 
@@ -74,9 +71,8 @@ from ..fields.halo import fold_block_periodic, pad_fields_periodic
 from ..fields.yee import update_b_half_periodic, update_e_full_periodic
 from ..particles.binning import rebin_by_tid, wrap_positions
 from ..particles.species import load_species
-from ..simulation import (StepDiag, advance_species_tiles,
-                          int8_weight_violations, resolve_backend,
-                          window_injection_key, window_shift_now)
+from ..simulation import (StepDiag, advance_backend, advance_species_tiles,
+                          rebin_flag, window_injection_key, window_shift_now)
 
 BAXIS = "d"
 
@@ -142,16 +138,15 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
     nyg, nxg = nyt + 2 * g, nxt + 2 * g
     tr, tc = tiling.tile_rows, tiling.tile_cols
     periodic = deck.boundary == "periodic"
-    backend, interpret = resolve_backend(deck)
-    use_incremental = (
-        deck.rebin_mode == "incremental"
-        or (deck.rebin_mode == "auto" and backend == "pallas")
-    )
+    backend = advance_backend(deck)
     trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
-    interval_grace = use_incremental and (
-        (deck.rebin_interval + 1) * deck.cfl_step_cells()
-        <= deck.guard - deck.shape_reach()
-    )
+    # Off-shard mover buffer per shard and species.  Between re-bins no
+    # particle drifts further than `band` cells, so at most a
+    # band*(1/tile_nx + 1/tile_ny) fraction of slots can have left its
+    # tile: a hard bound, so the buffer never drops a mover.
+    band = (deck.drift_threshold() + deck.cfl_step_cells() if trigger_drift
+            else deck.rebin_interval * deck.cfl_step_cells())
+    mover_frac = min(1.0, band * (1.0 / nxt + 1.0 / nyt))
     mask = (
         None
         if periodic
@@ -214,7 +209,6 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
 
         ftiles = FieldState(*(slice_windows(c) for c in fpad))
 
-        kernel_wrap = (deck.nx, deck.ny) if (periodic and backend == "pallas") else None
         center_grid = (deck.nx, deck.ny) if periodic else None
 
         new_species = []
@@ -237,16 +231,8 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
                 kchunk=deck.kchunk,
                 vma_axes=(BAXIS,),
                 backend=backend,
-                interpret=interpret,
-                gather_precision=deck.gather_precision,
-                deposit_mode=deck.deposit,
-                qw0=(spec.charge * deck.dx * deck.dy / spec.ppc
-                     if spec.uniform_weights() else 0.0),
-                wrap=kernel_wrap,
                 grid=center_grid,
                 return_disp=trigger_drift,
-                # Same soundness gate as the single-device driver.
-                w_synth=periodic,
             )
             if trigger_drift:
                 pnew, (sjx, sjy, sjz), sdisp = adv
@@ -293,7 +279,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
         # Moving window: the shift retires the trailing column's buckets
         # (their content outflows under the injection overwrite), so
         # buckets must be FRESH — fold the shift predicate into the
-        # re-bin predicate and force it, like the other two drivers.
+        # re-bin predicate, like the other two drivers.
         # window_x0 is replicated, so the predicate is mesh-agreed.
         if deck.moving_window:
             shift_now = window_shift_now(step, window_x0, dt, nxt, dx)
@@ -303,37 +289,21 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
             disp = lax.pmax(functools.reduce(jnp.maximum, disps), BAXIS)
             drift_now = drift + disp
             do_rebin_pred = drift_now > deck.drift_threshold()
-            force_flag = drift_now > deck.force_threshold()
             if shift_now is not None:
                 do_rebin_pred = do_rebin_pred | shift_now
-                force_flag = force_flag | shift_now
         else:
             drift_now = drift
-            sched = (
+            do_rebin_pred = (
                 None if deck.rebin_interval == 1
                 else step % deck.rebin_interval == 0
             )
-            if interval_grace:
-                pending_prev = drift > 0.5
-                do_rebin_pred = (
-                    None if sched is None else (sched | pending_prev)
-                )
-                force_flag = pending_prev
-            else:
-                do_rebin_pred = sched
-                force_flag = True
-            if shift_now is not None:
-                if do_rebin_pred is not None:
-                    do_rebin_pred = do_rebin_pred | shift_now
-                force_flag = jnp.logical_or(force_flag, shift_now)
+            if shift_now is not None and do_rebin_pred is not None:
+                do_rebin_pred = do_rebin_pred | shift_now
 
         overflow = jnp.zeros((), jnp.int32)
-        pending_total = jnp.zeros((), jnp.int32)
         binned = []
         for p in new_species:
-            if kernel_wrap is None:
-                p = wrap_positions(p, deck.nx, deck.ny, periodic)
-            mc = deck.mover_cap(p.capacity) if use_incremental else 0
+            p = wrap_positions(p, deck.nx, deck.ny, periodic)
 
             def dest_tid(flat):
                 """(local bucket index, belongs-to-this-shard) from global
@@ -357,72 +327,11 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
                 ) & on_grid
                 return jnp.take(jnp.asarray(local_of_np, jnp.int32), gid), mine
 
-            def do_rebin_incremental(pp, mc=mc):
-                from ..ops.pallas.rebin_kernels import (
-                    append_incoming, defrag_buckets, split_buckets,
-                )
-
-                p1, movers, wm, pending = split_buckets(
-                    pp,
-                    tile_rows=tr,
-                    tile_cols=tc,
-                    tile_ny=nyt,
-                    tile_nx=nxt,
-                    b_cap=mc,
-                    interpret=interpret,
-                    force=force_flag,
-                    vma_axes=(BAXIS,),
-                    tile_ids=gids,
-                )
-                # Striped destinations are arbitrary shards: gather every
-                # shard's movers, keep the slice addressed to this stripe.
-                gathered = jax.tree_util.tree_map(
-                    lambda a: lax.all_gather(a, BAXIS).reshape(
-                        n_shards * t_local * mc
-                    ),
-                    movers,
-                )
-                tid, mine = dest_tid(gathered)
-                # Kill other shards' arrivals BEFORE the sort (they are
-                # someone else's movers, not off-grid strays): overflow
-                # then counts only true capacity overflow on this stripe.
-                gathered = gathered._replace(
-                    w=jnp.where(mine, gathered.w, 0.0)
-                )
-                incoming, ovf_small = rebin_by_tid(
-                    gathered, tid, jnp.ones_like(mine), t_local, mc
-                )
-                n_in = jnp.sum((incoming.w > 0).astype(jnp.int32), axis=1)
-                ok_local = jnp.all(wm + n_in <= pp.capacity - 256)
-                ok = lax.psum(ok_local.astype(jnp.int32), BAXIS) == n_shards
-
-                def fast(_):
-                    return append_incoming(
-                        p1, incoming, wm, interpret=interpret,
-                        vma_axes=(BAXIS,),
-                    )
-
-                def slow(_):
-                    pd, _c, dd = defrag_buckets(
-                        p1, incoming, interpret=interpret, vma_axes=(BAXIS,)
-                    )
-                    return pd, dd
-
-                p2, drops = lax.cond(ok, fast, slow, None)
-                dropped = (ovf_small + drops.sum()).astype(jnp.int32)
-                forced = jnp.asarray(force_flag)
-                dropped = dropped + jnp.where(
-                    forced, pending.sum(), 0
-                ).astype(jnp.int32)
-                pend_out = jnp.where(forced, 0, pending.sum()).astype(jnp.int32)
-                return p2, dropped, pend_out
-
-            def do_rebin_sort(pp):
-                # XLA fallback: extract off-shard movers into a fixed
-                # buffer, all-gather, then ONE filler-key sort over
-                # (local slots + arrivals) — full compaction every pass.
-                cap_b = max(mc, 1024)
+            def do_rebin(pp):
+                # Extract off-shard movers into a fixed buffer, all-gather,
+                # then ONE filler-key sort over (local slots + arrivals).
                 n_loc = pp.num_tiles * pp.capacity
+                cap_b = max(1024, -(-int(mover_frac * n_loc) // 8) * 8)
                 flat = jax.tree_util.tree_map(
                     lambda a: a.reshape(n_loc), pp
                 )
@@ -455,37 +364,21 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
                 out, ovf = rebin_by_tid(
                     pool, tid, jnp.ones_like(mine2), t_local, pp.capacity
                 )
-                zero = lax.pcast(jnp.zeros((), jnp.int32), (BAXIS,), to="varying")
-                return out, (ovf + dropped_x).astype(jnp.int32), zero
-
-            do_rebin = (
-                do_rebin_incremental if (use_incremental and mc > 0)
-                else do_rebin_sort
-            )
+                return out, (ovf + dropped_x).astype(jnp.int32)
 
             if do_rebin_pred is None:
-                p, ov, pend = do_rebin(p)
+                p, ov = do_rebin(p)
             else:
                 def skip_rebin(pp):
                     zero = lax.pcast(jnp.zeros((), jnp.int32), (BAXIS,), to="varying")
-                    return pp, zero, zero
+                    return pp, zero
 
-                p, ov, pend = lax.cond(do_rebin_pred, do_rebin, skip_rebin, p)
+                p, ov = lax.cond(do_rebin_pred, do_rebin, skip_rebin, p)
             overflow = overflow + lax.psum(ov, BAXIS)
-            pending_total = pending_total + lax.psum(pend, BAXIS)
             binned.append(p)
 
         if trigger_drift:
-            drift_now = jnp.where(
-                do_rebin_pred & (pending_total == 0), 0.0, drift_now
-            )
-        elif interval_grace:
-            did = (
-                jnp.bool_(True) if do_rebin_pred is None else do_rebin_pred
-            )
-            drift_now = jnp.where(
-                did, (pending_total > 0).astype(jnp.float32), drift_now
-            )
+            drift_now = jnp.where(do_rebin_pred, 0.0, drift_now)
 
         live = jnp.zeros((), jnp.int32)
         for p in binned:
@@ -496,8 +389,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
             overflow=overflow,
             momentum=jnp.stack(moms) if moms else jnp.zeros((0, 3), deck.dtype),
             shard_live=live.reshape(1),
-            weight_nonuniform=int8_weight_violations(
-                deck, binned, axes=(BAXIS,)),
+            rebinned=rebin_flag(do_rebin_pred),
         )
 
         window_new = window_x0
@@ -560,9 +452,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh):
         P(),
     )
     smapped = jax.shard_map(
-        local_step, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_vma=not interpret,
-    )
+        local_step, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
 
     def step(state: SimState):
         drift = state.drift
@@ -600,9 +490,6 @@ class BalancedSimulation:
         self.mesh = Mesh(np.array(devices), (BAXIS,))
         n_shards = len(devices)
         cap = deck.capacity()
-        q = deck.kchunk if deck.kchunk > 0 else 128
-        if cap % q:
-            cap = -(-cap // q) * q
         key = jax.random.PRNGKey(seed)
         t = deck.tiling
         perm = balanced_permutation(
@@ -652,8 +539,7 @@ class BalancedSimulation:
             new_cap = mgr.plan(census(p), overflow)
             if new_cap is None:
                 continue
-            q = self.deck.kchunk if self.deck.kchunk > 0 else 128
-            cap = -(-new_cap // q) * q
+            cap = self.deck.round_capacity(new_cap)
             if cap > p.capacity:
                 grow = jax.jit(
                     functools.partial(_pad_cap, extra=cap - p.capacity),

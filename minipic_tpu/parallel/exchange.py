@@ -1,4 +1,4 @@
-"""Cross-shard particle routing — the TPU descendant of tile migration.
+"""Cross-shard particle routing — the on-device descendant of tile migration.
 
 The reference moves *tiles* between ranks (blocking MPI sends of the tile
 payload + a replicated owner table, Auxiliar_functions.cpp:242-272,
@@ -124,69 +124,3 @@ def exchange_particles(
         *(jnp.concatenate([k, r]) for k, r in zip(tuple(kept), recv))
     )
     return merged, dropped
-
-
-def roll_segments_sharded(
-    segments: ParticleState, *, ltr: int, ltc: int, rows: int, cols: int,
-    b_seg: int,
-) -> ParticleState:
-    """Deal-route stage 2 under block sharding: the GLOBAL static roll.
-
-    Single-device, arrivals at tile t from direction d are the d-th
-    segment of t's (-d)-neighbor — a pure jnp.roll of the tile grid
-    (binning._roll_segments).  Under a contiguous block decomposition the
-    same roll decomposes into a LOCAL roll plus a seam fix-up: after the
-    local roll, the seam row/column holds exactly the strip that wrapped
-    around the local block — which is precisely what the NEIGHBOR shard's
-    seam needs.  One cyclic ppermute per mesh axis and sign ships it
-    (diagonal segments reach the corner shard in two hops, like halo
-    corners).  This replaces BOTH the directional particle exchange and
-    the mover-pool routing sort in the sharded incremental re-bin: the
-    cross-shard movers ARE the seam strips.
-
-    segments: PACKED [T_local, 8ch, 8*b_seg] (segment_movers(packed=True)
-    layout — rows 0..5 = x..w, 6 = stats, 7 spare), direction d at
-    columns [d*b_seg, (d+1)*b_seg).  Returns `incoming` in the same
-    packed layout, ready for append_segments with an identity neighbor
-    table (the roll already moved every run to its destination tile, so
-    the fused append just merges each tile's own 8 runs at the
-    watermark, slab-only).  The stats/spare rows ride the roll to wrong
-    tiles, which is harmless — the append kernel zeroes rows 6..7 and
-    the per-direction drop counts were summed before the roll.
-    """
-    from ..ops.pallas.rebin_kernels import DIR_OFFSETS, N_CH
-
-    chans = segments.transpose(1, 0, 2)  # [8ch, T_local, 8*b_seg]
-    seg5 = chans.reshape(N_CH, ltr, ltc, 8, b_seg)
-    # Pass 1: tile-column axis.  parts[d] <- local col-roll by dc.
-    parts = [
-        jnp.roll(seg5[:, :, :, d], dc, axis=2) if dc else seg5[:, :, :, d]
-        for d, (_, dc) in enumerate(DIR_OFFSETS)
-    ]
-    if cols > 1:
-        for sign in (1, -1):
-            ds = [d for d, (_, dc) in enumerate(DIR_OFFSETS) if dc == sign]
-            seam = 0 if sign == 1 else ltc - 1
-            # My wrapped seam strip = my edge tiles' outgoing segments =
-            # what my (sign)-neighbor's seam needs; ship all 3 directions
-            # sharing the sign in one collective.
-            edge = jnp.stack([parts[d][:, :, seam] for d in ds])
-            recv = _shift(edge, "rx", up=(sign == -1), n=cols)
-            for k, d in enumerate(ds):
-                parts[d] = parts[d].at[:, :, seam].set(recv[k])
-    # Pass 2: tile-row axis (operates on the col-corrected strips, so
-    # diagonal data crosses the shard corner in two hops).
-    parts = [
-        jnp.roll(a, dr, axis=1) if dr else a
-        for a, (dr, _) in zip(parts, DIR_OFFSETS)
-    ]
-    if rows > 1:
-        for sign in (1, -1):
-            ds = [d for d, (dr, _) in enumerate(DIR_OFFSETS) if dr == sign]
-            seam = 0 if sign == 1 else ltr - 1
-            edge = jnp.stack([parts[d][:, seam] for d in ds])
-            recv = _shift(edge, "ry", up=(sign == -1), n=rows)
-            for k, d in enumerate(ds):
-                parts[d] = parts[d].at[:, seam].set(recv[k])
-    out = jnp.stack(parts, axis=3)  # [8ch, ltr, ltc, 8, b_seg]
-    return out.reshape(N_CH, ltr * ltc, 8 * b_seg).transpose(1, 0, 2)

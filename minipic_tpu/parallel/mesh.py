@@ -10,7 +10,7 @@ Auxiliar_functions.cpp:16-22).  Here the "rank grid" is a 2-D
 * particle buffers are sharded on the tile axis in *shard-major* order:
   global shape (R*C*T_local, K), index = shard_id * T_local + local_tile,
   so each chip's tiles are exactly the tiles of its field block;
-* halo traffic rides ICI via lax.ppermute (parallel/halo.py) — the
+* halo traffic rides the device links via lax.ppermute (parallel/halo.py) — the
   replicated owner[] table + barriers of the reference (PIC_2D.cpp:54,148)
   have no equivalent: placement is static, order is SPMD program order.
 """

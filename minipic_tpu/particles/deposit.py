@@ -19,19 +19,21 @@ old/new 1-D shape vectors S0x, S1x (same index window) and DS = S1 - S0:
     Jy[j,i] at (i, j+1/2):  analogous cumulative sum along y
     Jz[j,i] at (i, j):      (q w vz / (dx dy)) Wz[i,j]
 
-TPU-native key move: every term above is an *outer product* of a
-per-particle x-vector and y-vector, and the prefix sum commutes with the
-outer product — cumsum(DSx) ⊗ (S0y + DSy/2) — so summing over a tile's
-particles is a single [nyg, K] @ [K, nxg] matmul per component (MXU), with
-the cumulative sums as cheap dense 1-D prefix ops (VPU).  No scatter, no
-atomics, no sorting inside the kernel (SURVEY.md §7 hard part #1).
+Key move: every term above is an *outer product* of a per-particle
+x-vector and y-vector, and the prefix sum commutes with the outer product
+— cumsum(DSx) ⊗ (S0y + DSy/2) — so summing over a tile's particles is a
+single [nyg, K] @ [K, nxg] product per component, with the cumulative sums
+as cheap dense 1-D prefix ops.  No scatter, no atomics, no sorting
+(SURVEY.md §7 hard part #1).
 
 Validity window: each particle's full old+new support must lie inside its
 padded tile axis.  CFL guarantees <1 cell of motion per step; binning
 guarantees freshly-binned particles are in [0, tile_n); the guard width
-check lives in Deck.validate.  The dense cumsum self-terminates: right of
-the support, cumsum(DSx) = sum(S1x) - sum(S0x) = 0 (partition of unity), so
-no spurious current leaks to the tile edge.
+check lives in Deck.validate.  Right of the support the dense cumsum is
+sum(S1x) - sum(S0x) = 0 (partition of unity); in f32 that sum keeps one
+rounding, which summed over a tile's ~1e4 particles is a spurious current
+at ~5e-4 of max|J| running to the window edge, so the tail is zeroed
+explicitly (`prefix_flux`).
 """
 from __future__ import annotations
 
@@ -40,11 +42,22 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-_PREC = jax.lax.Precision.HIGHEST  # TPU default matmul precision is bf16,
-# which breaks exact charge conservation and force accuracy (measured:
-# continuity residual 0.5% of scale at DEFAULT vs round-off at HIGHEST)
+# Full f32 products: a reduced-precision default (TF32 on a GPU, bf16
+# passes elsewhere) keeps ~3 decimal digits and breaks charge
+# conservation (the Gauss-law check in chip_smoke.py catches it).
+_PREC = jax.lax.Precision.HIGHEST
 
 from .shapes import shape_matrix
+
+
+def prefix_flux(ds, pos0, pos1, g: int, order: int):
+    """cumsum(ds) along the window axis, exactly zero right of the
+    support of both shapes (see the module docstring).  ds: [..., K, W]
+    shape differences; pos0/pos1: [..., K] positions before/after."""
+    coords = jnp.arange(ds.shape[-1], dtype=ds.dtype) - g
+    reach = 1.0 if order == 1 else 1.5
+    hi = jnp.maximum(pos0, pos1)[..., None]
+    return jnp.where(coords - hi >= reach, 0.0, jnp.cumsum(ds, axis=-1))
 
 
 def deposit_chunk(
@@ -77,13 +90,13 @@ def deposit_chunk(
     dsy = s1y - s0y
 
     # Jx: cumsum along x of Wx, folded into the x-vector.
-    ax = jnp.cumsum(dsx, axis=-1)  # [T, kc, nxg]
+    ax = prefix_flux(dsx, xi0, xi1, g, order)  # [T, kc, nxg]
     by1 = s0y + 0.5 * dsy  # [T, kc, nyg]
     coef_x = (-qw / (dt * dy))[..., None]
     jx = jnp.einsum("tkj,tki->tji", by1 * coef_x, ax, precision=_PREC)
 
     # Jy: cumsum along y.
-    ay = jnp.cumsum(dsy, axis=-1)
+    ay = prefix_flux(dsy, eta0, eta1, g, order)
     bx1 = s0x + 0.5 * dsx
     coef_y = (-qw / (dt * dx))[..., None]
     jy = jnp.einsum("tkj,tki->tji", ay * coef_y, bx1, precision=_PREC)
@@ -98,30 +111,10 @@ def deposit_chunk(
     return jx, jy, jz
 
 
-def deposit_rho_chunk(xi, eta, qw, tile_ny: int, tile_nx: int, g: int, order: int, dx: float, dy: float, quantize: float = 0.0):
+def deposit_rho_chunk(xi, eta, qw, tile_ny: int, tile_nx: int, g: int, order: int, dx: float, dy: float):
     """Charge density tiles [T, nyg, nxg] at integer (Ez/Gauss) points —
-    the diagnostic side of the continuity/Gauss checks.
-
-    quantize > 0: snap each shape weight to round(quantize * S) / quantize
-    — the effective assignment function of the int8 matched-quantization
-    deposit (ppd_kernel deposit_mode='int8', S = qshape_scale(order)).  The
-    continuity identity div J = -d rho/dt holds exactly in the quantized
-    ring, so the residual check against an int8-deposited J must build
-    rho from the same quantized shapes."""
+    the diagnostic side of the continuity/Gauss checks."""
     sx = shape_matrix(xi, tile_nx, g, 0.0, order)
     sy = shape_matrix(eta, tile_ny, g, 0.0, order)
-    if quantize > 0:
-        # Match the kernel's qshape exactly: round, then fold the
-        # partition-of-unity defect into the center (|u| < 0.5) column.
-        def quant(s, pos, n):
-            coords = jnp.arange(n + 2 * g, dtype=pos.dtype) - g
-            u = pos[..., None] - coords
-            q = jnp.round(s * quantize)
-            defect = quantize - jnp.sum(q, axis=-1, keepdims=True)
-            center = (u >= -0.5) & (u < 0.5)
-            return (q + jnp.where(center, defect, 0.0)) * (1.0 / quantize)
-
-        sx = quant(sx, xi, tile_nx)
-        sy = quant(sy, eta, tile_ny)
     coef = (qw / (dx * dy))[..., None]
     return jnp.einsum("tkj,tki->tji", sy * coef, sx, precision=_PREC)

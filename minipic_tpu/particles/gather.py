@@ -3,16 +3,16 @@
 Completes the "Field Interpolation" stage of the reference's PIC loop
 (Mini_PIC_2D_Report.pdf Fig. 1, unimplemented there).
 
-TPU-native formulation: with separable shapes S(x,y) = Sx(x) Sy(y), the
+Dense formulation: with separable shapes S(x,y) = Sx(x) Sy(y), the
 interpolated value of field F for particle k is
 
     F_k = sum_{j,i} Sy_k[j] F[j,i] Sx_k[i]
         = rowsum( Sy_k * (Sx_k @ F^T) )
 
 Batched over a tile's K-slot chunk this is one [kc, nxg] @ [nxg, nyg]
-matmul per component (MXU) plus a VPU reduction — no gather instructions,
-no data-dependent addressing.  Components sharing the same x-stagger are
-stacked so the six Yee components cost two batched matmuls.
+product per component plus a row reduction — no gather instructions, no
+data-dependent addressing.  Components sharing the same x-stagger are
+stacked so the six Yee components cost two batched products.
 
 Yee stagger classes (geometry.STAGGER / Field_update.cpp:3-11):
   half-x   : Ex, By, Bz   (x at i+1/2)
@@ -27,9 +27,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-_PREC = jax.lax.Precision.HIGHEST  # TPU default matmul precision is bf16,
-# which breaks exact charge conservation and force accuracy (measured:
-# continuity residual 0.5% of scale at DEFAULT vs round-off at HIGHEST)
+# Full f32 products: a reduced-precision default (TF32 on a GPU, bf16
+# passes elsewhere) keeps ~3 decimal digits, which breaks charge
+# conservation and force accuracy.
+_PREC = jax.lax.Precision.HIGHEST
 
 from ..core.state import FieldState
 from .shapes import shape_matrix

@@ -18,7 +18,8 @@ second-order accurate, the standard PIC pusher (Birdsall & Langdon, the
 report's ref [1]).
 
 All functions are elementwise over arbitrarily-shaped arrays ([T, K] here);
-XLA fuses the whole pusher into one VPU kernel.
+XLA fuses the whole pusher into one elementwise kernel; the GPU advance
+kernel calls the same functions.
 """
 from __future__ import annotations
 

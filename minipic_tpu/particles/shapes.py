@@ -1,18 +1,18 @@
 """Particle shape functions as dense per-tile vectors.
 
-The TPU-native reformulation of PIC interpolation: instead of per-particle
-indexed scatter/gather over a 2-4 point support (the CPU/GPU idiom), each
-particle's 1-D shape function is evaluated *densely* over its tile's local
-grid axis (interior + guards).  Gather and deposition then become batched
-matrix products of these [K, n] shape matrices — MXU work with zero
-scatter/gather, no atomics, and no data-dependent indexing (SURVEY.md §7
-hard part #1).
+Dense reformulation of PIC interpolation: instead of per-particle indexed
+scatter/gather over a 2-4 point support, each particle's 1-D shape
+function is evaluated *densely* over its tile's local grid axis (interior
++ guards).  Gather and deposition then become batched products of these
+[K, n] shape matrices, with no scatter/gather, no atomics, and no
+data-dependent indexing (SURVEY.md §7 hard part #1).
 
 Separability S(x,y) = Sx(x) Sy(y) holds for all B-spline shapes, and the
 Esirkepov current decomposition is likewise separable per term (see
-deposit.py), so nothing is lost by the dense form; the extra flops are
-cheap on TPU relative to the memory traffic a sparse formulation would
-incur.
+deposit.py), so nothing is lost by the dense form.  It costs ~(n/4)^2
+more arithmetic than the sparse support; in exchange every program of
+the GPU kernel owns its tile's current windows outright (deterministic,
+no atomics).
 
 Local coordinates: a particle's tile-local position xi (cell units) lies in
 [0, tile_n) when freshly binned and may drift up to `guard - support/2`

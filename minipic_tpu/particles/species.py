@@ -4,7 +4,7 @@ momenta.
 The reference declares the per-particle contract (Particle struct,
 Auxiliar_functions.h:16-21) and a per-tile particle container
 (Tile.particles, :38-42) but never loads particles (SURVEY.md §0).  This
-module is the loader its design implies, TPU-style:
+module is the loader its design implies, on device:
 
 * Positions: a deterministic per-cell lattice ("quiet start") — ppc
   macroparticles at (i + (m+1/2)/ppc_x, j + (n+1/2)/ppc_y), which loads a

@@ -1,14 +1,14 @@
 """Single-device simulation driver: the full PIC step, jitted.
 
-This is the TPU re-expression of the reference's main time loop
+This is the on-device re-expression of the reference's main time loop
 (PIC_2D.cpp:171-420, phases A-H) completed with the particle stages its
 report designed for (Mini_PIC_2D_Report.pdf Fig. 1):
 
   reference phase                      here
   ---------------------------------   -----------------------------------
-  (missing) field interpolation        gather_chunk (matmul, MXU)
-  (missing) particle advance           boris_push + advance_positions (VPU)
-  (missing) current deposition         deposit_chunk (Esirkepov, MXU)
+  (missing) field interpolation        gather_chunk (batched products)
+  (missing) particle advance           boris_push + advance_positions
+  (missing) current deposition         deposit_chunk (Esirkepov)
   A  updateBhalf                       update_b_half_periodic
   B  guard exchange (MPI)              pad_fields_periodic / extract_tiles
   C  updateEfull                       update_e_full_periodic (+J term)
@@ -27,14 +27,14 @@ reference's two-half-B scheme):
   4. B^n -> B^{n+1/2} -> E^{n+1} (with J) -> B^{n+1}
   5. boundary-wrap positions; re-bin every rebin_interval steps
 
-The per-species chunk scan bounds the dense shape-matrix intermediates to
-[T, kchunk, tile+2g] (deck.kchunk) so the pipeline stays in cache-friendly
-blocks while every inner op is a batched matmul or fused VPU elementwise.
+Step 2 has two implementations of one contract (advance_backend picks):
+on a GPU in f32 the fused Triton kernel (ops/pallas/advance.py) keeps
+shapes and products in registers; elsewhere the XLA chunk scan bounds the
+dense shape-matrix intermediates to [T, kchunk, tile+2g] (deck.kchunk).
 """
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple, Optional, Tuple
 
 import jax
@@ -76,45 +76,7 @@ class StepDiag(NamedTuple):
     # this array is the straggler skew; parallel/balance.py).  Shape
     # [rows*cols] sharded, [1] single-device.
     shard_live: jax.Array
-    # Count of int8-engaged species whose LIVE weights are non-uniform —
-    # the runtime guard behind the deck-time gate (SpeciesSpec.uniform_weights).
-    # Non-zero means the integer-ring deposit is scaling currents with
-    # the WRONG q*w; RunHistory.record raises on it (diag cadence).
-    weight_nonuniform: jax.Array
-
-
-def int8_weight_violations(deck, species_states, axes=()):
-    """Count int8-engaged species whose LIVE weights are non-uniform.
-
-    The int8 matched-quantization deposit factors the uniform q*w out of
-    the integer-ring contraction as q*max(w) (ops/pallas/ppd_kernel.py);
-    that is only correct when every live particle of the species shares
-    one weight.  The deck gate (`SpeciesSpec.uniform_weights`) is a deck-time
-    proxy — a custom seed_state editing weights per particle would
-    deposit wrong currents SILENTLY while forces stay right (the class
-    of bug behind docs/ROADMAP.md round-3 lesson 1).  This on-device
-    census (free on the diag cadence) turns that into a loud error via
-    RunHistory.record.
-
-    `axes`: mesh axis names to reduce over inside shard_map — the check
-    must be GLOBAL (per-shard maxima can each be uniform while differing
-    across shards; the kernel's shard-local q*max(w) scale is then wrong
-    on every shard).  A shard with zero live particles is vacuously
-    uniform (dead slots deposit nothing).
-    """
-    bad = jnp.zeros((), jnp.int32)
-    if deck.deposit != "int8":
-        return bad
-    for spec, p in zip(deck.species, species_states):
-        if not spec.uniform_weights():
-            continue  # weight-profile species fall back to the f32 path
-        wmax = jnp.max(p.w)
-        wmin = jnp.min(jnp.where(p.w > 0, p.w, jnp.inf))
-        if axes:
-            wmax = jax.lax.pmax(wmax, axes)
-            wmin = jax.lax.pmin(wmin, axes)
-        bad = bad + ((wmin != wmax) & jnp.isfinite(wmin)).astype(jnp.int32)
-    return bad
+    rebinned: jax.Array  # 1 if this step re-binned the buckets, else 0
 
 
 def _tile_origins(tiling, dtype):
@@ -171,51 +133,38 @@ def advance_species_tiles(
     kchunk: int,
     vma_axes: Tuple[str, ...] = (),
     backend: str = "xla",
-    interpret: bool = False,
-    gather_precision: str = "exact",
-    deposit_mode: str = "",
-    qw0: float = 0.0,
-    red_mode: str = "",
-    wrap: Optional[Tuple[int, int]] = None,
     grid: Optional[Tuple[int, int]] = None,
     return_disp: bool = False,
-    w_synth: bool = False,
 ) -> Tuple[ParticleState, Tuple[jax.Array, jax.Array, jax.Array]]:
     """Gather + push + move + deposit for one species over its tile
-    buffers, scanned in slot chunks.  Returns the pushed particles
-    (positions unwrapped) and this species' J tile stack.
+    buffers: the Triton kernel (backend="triton", ops/pallas/advance.py)
+    or an XLA scan over `kchunk`-slot chunks.  Returns the pushed
+    particles (positions unwrapped) and this species' J tile stack, plus
+    the largest step displacement with return_disp.
 
     origins: ([T,1], [T,1]) global cell coordinates of each tile's interior
     origin (traced values in sharded runs, where they derive from the mesh
     coordinate).
     """
     t_total, cap = p.num_tiles, p.capacity
-    kc = cap if kchunk <= 0 or cap % kchunk else kchunk
-    nc = cap // kc
     nxt, nyt = tile_nx, tile_ny
     ox, oy = origins
 
-    if backend == "pallas":
-        from .ops.pallas.ppd_kernel import fused_push_deposit
+    if backend == "triton":
+        from .ops.pallas.advance import advance_tiles
 
-        # Occupancy watermark: highest live slot + 1.  Equals the live count
-        # for freshly-sorted buckets and stays correct when incremental
-        # re-binning leaves interior holes (w == 0 below the watermark).
-        counts = jnp.max(
-            (jnp.arange(cap, dtype=jnp.int32)[None, :] + 1)
-            * (p.w > 0).astype(jnp.int32),
-            axis=1,
-        )
-        kwargs = dict(
-            qm=qm, q=q, order=order, tile_ny=nyt, tile_nx=nxt, g=g,
-            dt=dt, dx=dx, dy=dy, kc=kc, gather_precision=gather_precision,
-            deposit_mode=deposit_mode, qw0=qw0, red_mode=red_mode,
-            wrap=wrap, grid=grid, return_disp=return_disp,
-            vma_axes=vma_axes, w_synth=w_synth,
-        )
-        if interpret:
-            kwargs["interpret"] = True
-        return fused_push_deposit(p, ftiles, counts, (ox, oy), **kwargs)
+        p_out, j, disp = advance_tiles(
+            p, ftiles, origins, qm=qm, q=q, order=order, tile_ny=nyt,
+            tile_nx=nxt, g=g, dt=dt, dx=dx, dy=dy, grid=grid,
+            vma_axes=vma_axes)
+        return (p_out, j, disp) if return_disp else (p_out, j)
+
+    kc = min(kchunk, cap)
+    if cap % kc:
+        raise ValueError(
+            f"bucket capacity {cap} is not a multiple of kchunk {kchunk} "
+            "(Deck.round_capacity rounds it)")
+    nc = cap // kc
 
     def chunked(a):  # [T, cap] -> [nc, T, kc]
         return a.reshape(t_total, nc, kc).transpose(1, 0, 2)
@@ -271,11 +220,10 @@ def tile_local_coords(x, y, origins, tile_nx: int, tile_ny: int,
     eta = y - oy
     if grid is not None:
         gnx, gny = grid
-        # Reciprocal multiply, NOT division: bit-identical to the pallas
-        # kernel's fold (ppd_kernel), so diagnostics (rho for continuity/
-        # Gauss) evaluate shapes at the same f32 coordinates the deposit
-        # used — required for the quantized (int8) deposit's exactness
-        # check, where a 1-ulp coordinate gap can flip a shape quantum.
+        # Reciprocal multiply, NOT division: bit-identical to the GPU
+        # kernel's fold (ops/pallas/advance.py), so diagnostics (rho for
+        # continuity/Gauss) evaluate shapes at the same f32 coordinates
+        # the deposit used.
         xi = xi - gnx * jnp.floor((xi + (gnx - tile_nx) * 0.5) * (1.0 / gnx))
         eta = eta - gny * jnp.floor((eta + (gny - tile_ny) * 0.5) * (1.0 / gny))
     return xi, eta
@@ -294,15 +242,26 @@ def max_step_displacement(species_states, dt: float, dx: float, dy: float):
     return disp
 
 
-def resolve_backend(deck: Deck) -> Tuple[str, bool]:
-    """(backend, interpret): fused Pallas kernel on TPU/f32 by default;
-    'on' forces it (interpreted off-TPU, for tests)."""
-    on_tpu = jax.default_backend() == "tpu"
-    if deck.use_pallas == "on":
-        return "pallas", not on_tpu
-    if deck.use_pallas == "auto" and on_tpu and deck.dtype == jnp.float32:
-        return "pallas", False
-    return "xla", False
+def advance_backend(deck: Deck) -> str:
+    """The particle advance that runs: the fused Triton kernel when the
+    default device (``jax.default_device`` if set) is a GPU and the deck
+    is f32, the XLA chunk scan everywhere else."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        platform = jax.default_backend()
+    else:
+        platform = dev if isinstance(dev, str) else dev.platform
+    if platform == "gpu" and deck.dtype == jnp.float32:
+        return "triton"
+    return "xla"
+
+
+def rebin_flag(do_rebin_pred) -> jax.Array:
+    """StepDiag.rebinned from the step's re-bin predicate (None = every
+    step)."""
+    if do_rebin_pred is None:
+        return jnp.ones((), jnp.int32)
+    return jnp.asarray(do_rebin_pred).astype(jnp.int32)
 
 
 def build_step(deck: Deck):
@@ -311,7 +270,7 @@ def build_step(deck: Deck):
     tiling = deck.tiling
     g = deck.guard
     dt, dx, dy = deck.dt, deck.dx, deck.dy
-    backend, interpret = resolve_backend(deck)
+    backend = advance_backend(deck)
     periodic = deck.boundary == "periodic"
     mask = (
         None
@@ -330,10 +289,6 @@ def build_step(deck: Deck):
         jx = jy = jz = None
         kes = []
         moms = []
-        # Periodic wrap rides the kernel's position store on the pallas
-        # path (saves a full pass over the particle arrays); the XLA path
-        # and absorbing boundaries wrap/absorb below.
-        kernel_wrap = (deck.nx, deck.ny) if (periodic and backend == "pallas") else None
         center_grid = (deck.nx, deck.ny) if periodic else None
         trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
         disps = []
@@ -353,25 +308,8 @@ def build_step(deck: Deck):
                 dy=dy,
                 kchunk=deck.kchunk,
                 backend=backend,
-                interpret=interpret,
-                gather_precision=deck.gather_precision,
-                deposit_mode=deck.deposit,
-                # Uniform-weight species (SpeciesSpec.uniform_weights:
-                # no density profile, or count-mode with declared n_max)
-                # factor q*w out of the deposit contraction — gates the
-                # int8 matched-quantization deposit (deck.deposit /
-                # MINIPIC_DEPOSIT_MODE = "int8"); the actual uniform
-                # value is read from the state at call time (q * max(w)),
-                # so seed_state weight rescales stay correct.
-                qw0=(spec.charge * dx * dy / spec.ppc
-                     if spec.uniform_weights() else 0.0),
-                wrap=kernel_wrap,
                 grid=center_grid,
                 return_disp=trigger_drift,
-                # w-stream elision: sound only when buckets stay
-                # live-compacted between re-bins — periodic decks (no
-                # absorbing/window kills) with the compacting loader.
-                w_synth=periodic,
             )
             if trigger_drift:
                 pnew, (sjx, sjy, sjz), sdisp = adv
@@ -402,21 +340,6 @@ def build_step(deck: Deck):
         if mask is not None:
             f = apply_damping(f, mask)
 
-        use_incremental = (
-            deck.rebin_mode == "incremental"
-            or (deck.rebin_mode == "auto" and backend == "pallas")
-        )
-        # Interval schedule: when the guard affords one extra CFL step, a
-        # mover-buffer overflow defers the tile losslessly to the next step
-        # (exactly the drift trigger's deferral budget) instead of forcing
-        # an immediate drop-and-count.  The deferred-backlog marker rides
-        # SimState.drift, unused by this schedule otherwise (0 = clean,
-        # 1 = backlog pending).
-        interval_grace = use_incremental and (
-            (deck.rebin_interval + 1) * deck.cfl_step_cells()
-            <= deck.guard - deck.shape_reach()
-        )
-
         # Moving window: a shift rolls BUCKETS, so any particle that left
         # its trailing-column tile since the last re-bin would be dropped
         # with its stale bucket despite being in-window — force the
@@ -442,84 +365,38 @@ def build_step(deck: Deck):
             disp = functools.reduce(jnp.maximum, disps)
             drift_now = state.drift + disp
             do_rebin_pred = drift_now > deck.drift_threshold()
-            # Beyond this line a deferred re-bin may no longer wait:
-            # extract with counted drops rather than corrupt physics.
-            force_flag = drift_now > deck.force_threshold()
             if shift_now is not None:
-                # A shift rolls buckets, so deferral is not an option on
-                # shift steps: a pending mover in a trailing-column
-                # bucket would be dropped UNcounted with the column.
-                # Forced extraction drops-and-counts instead.
                 do_rebin_pred = do_rebin_pred | shift_now
-                force_flag = force_flag | shift_now
         else:
             drift_now = state.drift
-            sched = (
+            do_rebin_pred = (
                 None if deck.rebin_interval == 1
                 else state.step % deck.rebin_interval == 0
             )
-            if interval_grace:
-                pending_prev = state.drift > 0.5
-                do_rebin_pred = (
-                    None if sched is None else (sched | pending_prev)
-                )
-                force_flag = pending_prev  # drain the backlog, then drop
-            else:
-                do_rebin_pred = sched
-                force_flag = True  # no deferral budget in the guard
-            if shift_now is not None:
-                # No deferral into a bucket roll (see the drift branch).
-                if do_rebin_pred is not None:
-                    do_rebin_pred = do_rebin_pred | shift_now
-                force_flag = jnp.logical_or(force_flag, shift_now)
+            if shift_now is not None and do_rebin_pred is not None:
+                do_rebin_pred = do_rebin_pred | shift_now
 
         overflow = jnp.zeros((), jnp.int32)
-        pending_total = jnp.zeros((), jnp.int32)
         binned = []
         for p in new_species:
-            if kernel_wrap is None:
-                p = wrap_positions(p, deck.nx, deck.ny, periodic)
+            p = wrap_positions(p, deck.nx, deck.ny, periodic)
 
-            mc = deck.mover_cap(p.capacity) if use_incremental else 0
-            if use_incremental and mc > 0:
-                from .particles.binning import rebin_auto
-
-                sc = deck.mover_seg_cap(mc)
-
-                def do(pp, sc=sc):
-                    return rebin_auto(pp, tiling, mc, interpret=interpret,
-                                      force=force_flag, seg_cap=sc)
-            else:
-                def do(pp):
-                    out, ov = rebin(pp, tiling)
-                    return out, ov, jnp.zeros((), jnp.int32)
+            def do(pp):
+                return rebin(pp, tiling)
 
             if do_rebin_pred is None:
-                p, ov, pend = do(p)
+                p, ov = do(p)
             else:
                 def skip(pp):
-                    z = jnp.zeros((), jnp.int32)
-                    return pp, z, z
+                    return pp, jnp.zeros((), jnp.int32)
 
-                p, ov, pend = jax.lax.cond(do_rebin_pred, do, skip, p)
+                p, ov = jax.lax.cond(do_rebin_pred, do, skip, p)
             overflow = overflow + ov
-            pending_total = pending_total + pend
             binned.append(p)
 
         if trigger_drift:
-            # Reset the budget only after a complete re-bin; deferred
-            # backlog (pending) keeps the budget hot so the next step
-            # re-triggers and drains it.
-            drift_now = jnp.where(
-                do_rebin_pred & (pending_total == 0), 0.0, drift_now
-            )
-        elif interval_grace:
-            did = (
-                jnp.bool_(True) if do_rebin_pred is None else do_rebin_pred
-            )
-            drift_now = jnp.where(
-                did, (pending_total > 0).astype(jnp.float32), drift_now
-            )
+            # The budget restarts after every re-bin.
+            drift_now = jnp.where(do_rebin_pred, 0.0, drift_now)
 
         live = jnp.zeros((), jnp.int32)
         for p in binned:
@@ -530,7 +407,7 @@ def build_step(deck: Deck):
             overflow=overflow,
             momentum=jnp.stack(moms) if moms else jnp.zeros((0, 3), deck.dtype),
             shard_live=live.reshape(1),
-            weight_nonuniform=int8_weight_violations(deck, binned),
+            rebinned=rebin_flag(do_rebin_pred),
         )
         window_x0 = state.window_x0
         if deck.moving_window:
@@ -604,17 +481,6 @@ class Simulation:
         self.deck = deck
         tiling = deck.tiling
         cap = deck.capacity()
-        # Buckets stay kchunk-aligned (or 512-aligned for whole-bucket
-        # chunks: the re-bin kernels slice in 128-lane blocks, and the
-        # int8 deposit's 4-way K-fold needs kc/4 lane-aligned — Mosaic
-        # rejects tpu.concatenate of mixed-lane-offset slices; <=1.4%
-        # extra slots).  A larger MINIPIC_SPLIT_KC raises the alignment
-        # so the split kernel's cap % kc requirement holds; split_kc_env
-        # rounds the env value to the 512 quantum both sides share.
-        from .ops.pallas.rebin_kernels import split_kc_env
-        q = deck.kchunk if deck.kchunk > 0 else split_kc_env()
-        if cap % q:
-            cap = -(-cap // q) * q
         key = jax.random.PRNGKey(seed)
         species = []
         for i, spec in enumerate(deck.species):
@@ -658,11 +524,7 @@ class Simulation:
             new_cap = mgr.plan(census(p), overflow)
             if new_cap is None:
                 continue
-            # Same alignment rule as __init__: kchunk multiple, or the
-            # shared 512-quantum split_kc_env for whole-bucket mode.
-            from .ops.pallas.rebin_kernels import split_kc_env
-            q = self.deck.kchunk if self.deck.kchunk > 0 else split_kc_env()
-            cap = -(-new_cap // q) * q
+            cap = self.deck.round_capacity(new_cap)
             if cap > p.capacity:
                 species[i] = with_capacity(p, cap)
                 changed = True

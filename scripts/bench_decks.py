@@ -1,17 +1,16 @@
-"""Steps/sec for every BASELINE deck (single chip), plus the
+"""Steps/sec for every BASELINE deck on one device, plus the
 load_balance_stress census demonstration.
 
 Writes docs/BENCH_DECKS.json (incrementally) and prints a markdown
-table.  Run on the real TPU:
+table, with the device and card recorded.  Run on a GPU:
     PYTHONPATH=. python scripts/bench_decks.py [--steps 30]
 
-The sharded (2x4 mesh) correctness of load_balance_stress is covered by
-the 8-virtual-CPU tests and __graft_entry__.dryrun_multichip; here the
-same deck runs single-chip for the throughput/census numbers (at ~8e7
-particles — the full 2e8 needs the 8-chip mesh's memory).
+The sharded correctness of load_balance_stress is covered by the
+virtual-CPU tests, __graft_entry__.dryrun_multichip and
+``chip_smoke.py --four-cards``; here the deck runs on one device at
+~8e7 particles for the throughput/census numbers.
 """
 import argparse
-import dataclasses
 import json
 import time
 
@@ -21,7 +20,7 @@ import numpy as np
 
 
 def sync(state):
-    return float(state.fields.ex.sum())
+    return jax.block_until_ready(state)
 
 
 def _bench_one(name, kw, args):
@@ -30,8 +29,6 @@ def _bench_one(name, kw, args):
 
     case = make(name, **kw)
     deck = case.deck
-    if deck.mesh_shape is not None:
-        deck = dataclasses.replace(deck, mesh_shape=None)
     fields = case.init_fields(deck) if case.init_fields else None
     sim = Simulation(deck, fields=fields)
     if case.seed_state:
@@ -57,6 +54,7 @@ def _bench_one(name, kw, args):
     n_parts = sum(int(p.alive_count()) for p in state.species)
     row = {
         "deck": name,
+        "device_kind": jax.devices()[0].device_kind,
         "grid": f"{deck.nx}x{deck.ny}",
         "particles": n_parts,
         "ms_per_step": round(dt_step * 1e3, 2),
@@ -96,6 +94,10 @@ def main():
     ap.add_argument("--json-out", default="docs/BENCH_DECKS.json")
     args = ap.parse_args()
 
+    from minipic_tpu.card import cards
+    from minipic_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     rows = []
     for name in args.decks.split(","):
         kw = {}
@@ -107,7 +109,8 @@ def main():
             rows.append({"deck": name, "error": str(e)[:300]})
             print(f"{name}: FAILED {str(e)[:300]}", flush=True)
         with open(args.json_out, "w") as f:
-            json.dump({"steps_window": args.steps, "rows": rows}, f, indent=1)
+            json.dump({"steps_window": args.steps, "card": "; ".join(cards()),
+                       "rows": rows}, f, indent=1)
 
     print("\n| deck | grid | particles | ms/step | steps/s | pushes/s |")
     print("|---|---|---|---|---|---|")

@@ -14,12 +14,13 @@ its report's §4 diagnostics:
 The whole run is ONE device program: an outer lax.scan over samples, each
 iteration scanning `sample_every` Yee steps and emitting the mid-y Bz
 lineout — no host round-trips until the stacked [n_samples, nx] lineout
-array returns.  ~64k field steps at 450^2 complete in seconds on a v5e.
+array returns.  ``{card}`` in --npz/--json becomes the card's name and
+power limit (minipic_tpu.card.tag).
 
 Usage:
   PYTHONPATH=. python scripts/validate_reference.py            # nx=450, full span
   PYTHONPATH=. python scripts/validate_reference.py --nx 720
-  ... --write-md docs/VALIDATION.md --npz docs/validation_450.npz
+  ... --npz docs/validation_{card}_450.npz --json docs/validation_{card}_450.json
 """
 import argparse
 import json
@@ -78,6 +79,8 @@ def main():
 
     import jax
 
+    from minipic_tpu.card import cards, tag
+    from minipic_tpu.compile_cache import enable_compile_cache
     from minipic_tpu.decks.standard import reference_pulse
     from minipic_tpu.diag.analysis import (
         fdtd_dispersion_velocity,
@@ -85,6 +88,7 @@ def main():
         track_peak_speed,
     )
 
+    enable_compile_cache()
     case = reference_pulse(nx=args.nx, ny=args.nx)
     deck = case.deck
     if args.precision != deck.precision:
@@ -121,6 +125,8 @@ def main():
         "dt": deck.dt,
         "precision": args.precision,
         "backend": jax.default_backend(),
+        "device_kind": jax.devices()[0].device_kind,
+        "card": "; ".join(cards()),
         "wall_s": round(wall, 2),
         "speed_c": round(speed, 6),
         "speed_theory_c": round(v_theory, 6),
@@ -132,6 +138,7 @@ def main():
     print(json.dumps(summary, indent=1))
 
     if args.npz:
+        args.npz = args.npz.format(card=tag())
         os.makedirs(os.path.dirname(args.npz) or ".", exist_ok=True)
         np.savez_compressed(
             args.npz, times=times, lines=lines.astype(np.float32),
@@ -139,6 +146,7 @@ def main():
             **{k: v for k, v in summary.items() if isinstance(v, (int, float))},
         )
     if args.json:
+        args.json = args.json.format(card=tag())
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(summary, f, indent=1)

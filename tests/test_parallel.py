@@ -159,44 +159,6 @@ def test_cross_shard_migration_no_losses():
     assert n0 == n1
 
 
-@pytest.mark.parametrize("deposit", ["", "int8"])
-@pytest.mark.slow
-def test_sharded_incremental_rebin_matches_single_device(deposit):
-    """Force the movers-only sharded re-bin (Pallas interpret + incremental)
-    and compare against the single-device run — the cross-shard version of
-    the incremental-vs-sort equivalence.  deposit='int8' additionally pins
-    the matched-quantization mode's shard-invariance (the runtime uniform
-    q*max(w) scale is shard-local; guard 4 keeps the fused-gather window
-    the int8 path requires)."""
-    deck = _deck(
-        mesh_shape=(2, 2),
-        use_pallas="on",
-        rebin_mode="incremental",
-        precision="f32",
-        kchunk=64,
-        capacity_headroom=3.0,
-        **(dict(deposit="int8", guard=4) if deposit else {}),
-    )
-    ref = Simulation(deck, seed=7)
-    sh = ShardedSimulation(deck, seed=7, devices=jax.devices()[:4])
-    dref = ref.step(10)
-    dsh = sh.step(10)
-    assert int(dref.overflow) == 0 and int(dsh.overflow) == 0
-    np.testing.assert_allclose(
-        float(dsh.field_energy), float(dref.field_energy), rtol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(dsh.kinetic_energy), np.asarray(dref.kinetic_energy), rtol=1e-5
-    )
-    # exact alive-particle conservation
-    n_ref = sum(int(s.alive_count()) for s in ref.state.species)
-    n_sh = sum(int(s.alive_count()) for s in sh.state.species)
-    n0 = sum(
-        deck.species[i].ppc * deck.nx * deck.ny for i in range(len(deck.species))
-    )
-    assert n_ref == n_sh == n0
-
-
 def test_exchange_kills_multi_hop_particles():
     """A live slot >1 shard-hop away (only possible via corrupted
     positions — Deck.validate bounds physical drift to one hop) must be
@@ -248,73 +210,3 @@ def test_exchange_kills_multi_hop_particles():
     assert int(dropped) == n_sh  # the 2-hop slot, once per shard
     assert int(live) == 2 * n_sh  # stayer + the arrived 1-hop neighbor
     assert int(misrouted) == 0
-
-
-@pytest.mark.parametrize("mesh_shape,fused", [
-    ((2, 2), "0"), ((1, 4), "0"), ((1, 8), "0"),
-    # One fused-append combo: the packed roll + append_segments sharded
-    # path (identity neighbor table) — opt-in on chip, see binning.py.
-    ((2, 2), "1"),
-])
-@pytest.mark.slow
-def test_sharded_deal_route_matches_single_device(mesh_shape, fused, monkeypatch):
-    """Sharded DEAL-ROUTE re-bin (segment + global static roll whose seam
-    ppermutes carry the cross-shard movers, exchange.roll_segments_sharded)
-    vs the single-device deal route: same deck, same seed, exact particle
-    multisets.  The deck is sized so the seg gate engages (capacity >=
-    8*seg_cap + 256) — asserted, so a future gate change can't silently
-    turn this back into a legacy-route test."""
-    monkeypatch.setenv("MINIPIC_APPEND_FUSED", fused)
-    deck = _deck(
-        mesh_shape=mesh_shape,
-        use_pallas="on",
-        rebin_mode="incremental",
-        precision="f32",
-        kchunk=64,
-        capacity_headroom=3.0,
-        species=(
-            SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=12, ux=0.3,
-                        uy=0.2, uth=0.05),
-        ),
-    )
-    cap = deck.capacity()
-    sc = deck.mover_seg_cap(deck.mover_cap(cap))
-    assert sc > 0 and cap >= 8 * sc + 256, (
-        f"deck does not engage the deal route (cap={cap}, seg={sc}) — "
-        "resize the test deck"
-    )
-    n_dev = mesh_shape[0] * mesh_shape[1]
-    ref = Simulation(deck, seed=7)
-    sh = ShardedSimulation(deck, seed=7, devices=jax.devices()[:n_dev])
-    n_steps = 12
-    dref = ref.step(n_steps)
-    dsh = sh.step(n_steps)
-    assert int(dref.overflow) == 0 and int(dsh.overflow) == 0
-    np.testing.assert_allclose(
-        float(dsh.field_energy), float(dref.field_energy), rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(dsh.kinetic_energy), np.asarray(dref.kinetic_energy),
-        rtol=1e-6,
-    )
-    perm = shard_major_permutation(deck, sh.mesh)
-    for pref, psh in zip(ref.state.species, sh.state.species):
-        wa = np.asarray(pref.w) > 0
-        wb = np.asarray(psh.w) > 0
-        assert wa.sum() == wb.sum()
-        # Per-tile counts exactly equal: nothing lost, duplicated, or
-        # misrouted.  Values to f32 ulps only — the sharded J guard-fold
-        # sums in a different order than the single-device fold, so
-        # positions pick up ~1-ulp differences regardless of route
-        # (measured 2/147456 slots at 1.2e-7).
-        cnt_gid = np.empty(wb.shape[0], dtype=np.int64)
-        cnt_gid[perm] = wb.sum(axis=1)
-        np.testing.assert_array_equal(cnt_gid, wa.sum(axis=1))
-        for name in ("x", "y", "px", "py", "pz", "w"):
-            a = np.sort(np.where(wa, np.asarray(getattr(pref, name)), 0.0), axis=1)
-            b = np.where(wb, np.asarray(getattr(psh, name)), 0.0)
-            b_gid = np.empty_like(b)
-            b_gid[perm] = b
-            b_gid = np.sort(b_gid, axis=1)
-            np.testing.assert_allclose(b_gid, a, rtol=1e-6, atol=1e-6,
-                                       err_msg=name)
